@@ -9,7 +9,10 @@ neither jax nor gpt_image_edit_tpu.
 
 Ported so far: the FLUX.1-Kontext edit pipeline (VAE encode -> flow-matching
 Euler loop over the MMDiT -> VAE decode) in bf16, with the flash-attention
-forward kernel (K1).
+forward kernel (K1); and its W8A8 serving modes (`utils.quantize`, the
+quantized branches of `models.common`), "w8a8" and "w8a8-qk8", with the
+fused LayerNorm + modulate + int8 row quantization kernel (K2) and the
+int8-q k^T flash-attention kernel (K3).
 """
 
 __version__ = "0.1.0"

@@ -38,17 +38,17 @@
 //   - K/V tiles of 32 rows are double-buffered in shared memory with
 //     cp.async, so the next tile's load overlaps this tile's math; rows are
 //     padded by 8 halves so ldmatrix reads are free of bank conflicts.
+// The cp.async/ldmatrix primitives, the softmax, the p v product and the
+// store are shared with K3 (flash_attention_qk8.cu) in flash_common.cuh.
 // At the FLUX shape this runs at about a quarter of the bf16 peak (PERF.md);
 // wgmma/TMA and warp specialisation, the way to Hopper's full rate, are
 // later work.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace gie;
 
 constexpr int kWarps = 4;
 constexpr int kMT = 2;        // m16 row tiles per warp
@@ -56,7 +56,6 @@ constexpr int kBlockM = kWarps * 16 * kMT;  // query rows per thread block
 constexpr int kBlockN = 32;   // keys per KV tile
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;       // halves of padding per shared-memory row
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -72,94 +71,6 @@ struct Params {
   int causal;
   float scale_log2;         // scale * log2(e)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; with pred false the destination is zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-template <typename T>
-struct Ops;
-
-template <>
-struct Ops<__nv_bfloat16> {
-  // c (16x8 f32) += a (16x16, row) * b (16x8, col)
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <>
-struct Ops<__half> {
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-// Copy rows [row0, row0 + kRows) of one head into a padded shared tile;
-// rows at or past `rows_total` are zero-filled.
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_stride, int row0,
-                                          int rows_total, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kStride = D + kPad;
-#pragma unroll
-  for (int i = tid; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const int row = row0 + r;
-    const bool ok = row < rows_total;
-    const T* s = ok ? src + row * row_stride + c * 8 : src;
-    cp_async16(smem_u32(dst + r * kStride + c * 8), s, ok);
-  }
-}
-
-// 2^x on the special-function unit; 2^-inf = +0.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The per-key part of the mask for one KV tile, as an additive row:
 // 0 for a key that is in range and kept, -inf otherwise.
@@ -212,9 +123,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   }
 
   if (n_tiles > 0) {
-    load_tile<T, D, kBlockM>(sQ, q_base, q_row_stride, m_start, p.Sq, tid);
-    load_tile<T, D, kBlockN>(sK, k_base, kv_row_stride, 0, p.Skv, tid);
-    load_tile<T, D, kBlockN>(sV, v_base, kv_row_stride, 0, p.Skv, tid);
+    load_tile<T, D, kBlockM, kStride, kThreads>(sQ, q_base, q_row_stride, m_start, p.Sq, tid);
+    load_tile<T, D, kBlockN, kStride, kThreads>(sK, k_base, kv_row_stride, 0, p.Skv, tid);
+    load_tile<T, D, kBlockN, kStride, kThreads>(sV, v_base, kv_row_stride, 0, p.Skv, tid);
     load_col_bias(sColBias, p, b, 0, tid);
     cp_async_commit();
   }
@@ -245,10 +156,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   for (int j = 0; j < n_tiles; ++j) {
     const int stage = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile<T, D, kBlockN>(sK + (stage ^ 1) * kBlockN * kStride, k_base, kv_row_stride,
-                               (j + 1) * kBlockN, p.Skv, tid);
-      load_tile<T, D, kBlockN>(sV + (stage ^ 1) * kBlockN * kStride, v_base, kv_row_stride,
-                               (j + 1) * kBlockN, p.Skv, tid);
+      load_tile<T, D, kBlockN, kStride, kThreads>(sK + (stage ^ 1) * kBlockN * kStride, k_base,
+                                                  kv_row_stride, (j + 1) * kBlockN, p.Skv, tid);
+      load_tile<T, D, kBlockN, kStride, kThreads>(sV + (stage ^ 1) * kBlockN * kStride, v_base,
+                                                  kv_row_stride, (j + 1) * kBlockN, p.Skv, tid);
       load_col_bias(sColBias + (stage ^ 1) * kBlockN, p, b, (j + 1) * kBlockN, tid);
       cp_async_commit();
       cp_async_wait<1>();
@@ -319,81 +230,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
     }
 
     // online softmax; a row's scores are spread over the 4 lanes of a quad
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = m_i[mt][i];
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) mx = fmaxf(mx, fmaxf(s[mt][nt][2 * i], s[mt][nt][2 * i + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float base = mx == -INFINITY ? 0.f : mx;  // a row with no key yet
-        const float alpha = fast_exp2(m_i[mt][i] - base);
-        m_i[mt][i] = mx;
-        float rowsum = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          s[mt][nt][2 * i] = fast_exp2(s[mt][nt][2 * i] - base);
-          s[mt][nt][2 * i + 1] = fast_exp2(s[mt][nt][2 * i + 1] - base);
-          rowsum += s[mt][nt][2 * i] + s[mt][nt][2 * i + 1];
-        }
-        l_i[mt][i] = l_i[mt][i] * alpha + rowsum;  // lane-partial; reduced at the end
-#pragma unroll
-        for (int dt = 0; dt < kDT; ++dt) {
-          acc[mt][dt][2 * i] *= alpha;
-          acc[mt][dt][2 * i + 1] *= alpha;
-        }
-      }
-    }
-
-    // acc += p v, with p repacked from the score accumulators; each V
-    // fragment feeds kMT products
-#pragma unroll
-    for (int kc = 0; kc < kNT / 2; ++kc) {
-      uint32_t a[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        a[mt][0] = Ops<T>::pack(s[mt][2 * kc][0], s[mt][2 * kc][1]);
-        a[mt][1] = Ops<T>::pack(s[mt][2 * kc][2], s[mt][2 * kc][3]);
-        a[mt][2] = Ops<T>::pack(s[mt][2 * kc + 1][0], s[mt][2 * kc + 1][1]);
-        a[mt][3] = Ops<T>::pack(s[mt][2 * kc + 1][2], s[mt][2 * kc + 1][3]);
-      }
-#pragma unroll
-      for (int d2 = 0; d2 < kDT / 2; ++d2) {
-        uint32_t bv[4];
-        const int r = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = d2 * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(bv, smem_u32(cV + r * kStride + c));
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          Ops<T>::mma(acc[mt][2 * d2], a[mt], bv[0], bv[1]);
-          Ops<T>::mma(acc[mt][2 * d2 + 1], a[mt], bv[2], bv[3]);
-        }
-      }
-    }
+    online_softmax<kMT, kNT, kDT>(s, m_i, l_i, acc);
+    // acc += p v, with p repacked from the score accumulators
+    accumulate_pv<T, kMT, kNT, kDT, kStride>(s, acc, cV, lane);
     __syncthreads();  // this stage is refilled by the next iteration's loads
   }
   cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float l = l_i[mt][i];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const float inv = l > 0.f ? 1.f / l : 0.f;  // a row that saw no key gives 0
-      const int r = m_start + warp_row + mt * 16 + g + 8 * i;
-      if (r < p.Sq) {
-#pragma unroll
-        for (int dt = 0; dt < kDT; ++dt) {
-          *reinterpret_cast<uint32_t*>(o_base + r * q_row_stride + dt * 8 + tig * 2) =
-              Ops<T>::pack(acc[mt][dt][2 * i] * inv, acc[mt][dt][2 * i + 1] * inv);
-        }
-      }
-    }
-  }
+  store_rows<T, kMT, kDT>(acc, l_i, o_base, q_row_stride, m_start + warp_row, p.Sq, lane);
 }
 
 template <typename T, int D>

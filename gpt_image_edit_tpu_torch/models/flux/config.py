@@ -4,12 +4,13 @@ A copy of `gpt_image_edit_tpu.models.flux.config.FluxConfig`, field for
 field, so one config value means the same model in both packages: 19
 dual-stream + 38 single-stream blocks, 24 heads x 128, guidance-distilled.
 
-The port reads the model widths, `rope_dtype` and `attention_impl`. The
-fields that steer the JAX compiler (`scan_blocks`, `scan_unroll`) have no
-meaning under eager PyTorch: the port runs the blocks as a Python loop
-either way, which computes the same thing. `remat` (training) and
-`fuse_mod_quant` (W8A8 serving) belong to paths the port does not have
-yet; `models.flux.model.apply` refuses a config that asks for them.
+The port reads the model widths, `rope_dtype`, `attention_impl` and
+`fuse_mod_quant`. The fields that steer the JAX compiler (`scan_blocks`,
+`scan_unroll`) have no meaning under eager PyTorch: the port runs the blocks
+as a Python loop either way, which computes the same thing. `remat`
+(training) belongs to a path the port does not have yet, and so do the
+attention routes other than "auto" and "pallas_qk8";
+`models.flux.model.apply` refuses a config that asks for them.
 """
 
 from __future__ import annotations
@@ -36,8 +37,11 @@ class FluxConfig:
     # gradient checkpointing of each block (training only)
     remat: bool = False
     remat_policy: str = "nothing"
-    # attention dispatch. The port has one route, "auto": the CUDA flash
-    # kernel on a CUDA tensor, its plain version on a CPU tensor.
+    # attention dispatch: "auto" = K1, the bf16 flash kernel;
+    # "pallas_qk8" = K3, int8 q k^T + bf16 p v (W8A8 serving, the JAX
+    # runtime's --quantize w8a8-qk8). Each launches its CUDA kernel on a
+    # CUDA tensor and runs its plain version on a CPU tensor. "pallas_int8"
+    # (K4) is not ported yet.
     attention_impl: str = "auto"
     # rope rotation dtype: "float32" = reference-faithful (diffusers
     # apply_rotary_emb upcasts); "bfloat16" keeps the rotation + tables in bf16
@@ -45,7 +49,13 @@ class FluxConfig:
     # JAX compiler knobs (lax.scan over the stacked blocks); no effect here
     scan_blocks: bool = True
     scan_unroll: int = 1
-    # fused ln+modulate+int8-quant block prologue (W8A8 serving only)
+    # fused ln+modulate+int8-quant block prologue (K2) for W8A8 kernels:
+    # "env" reads GIE_FUSE_MOD_QUANT (default on; "0" = off), or "on" |
+    # "off" | "interpret". "on" launches K2 on a CUDA tensor and takes its
+    # plain version on a CPU tensor; "off" runs the unfused chain and
+    # quantizes in the consuming linear. "interpret" (the JAX package's
+    # CPU test mode) is accepted so that one config means the same in both
+    # packages, and does what "on" does.
     fuse_mod_quant: str = "env"
 
     @property

@@ -7,6 +7,12 @@ linear kernels are (in, out). The blocks run as a Python loop over that axis
 x1000 inside; text rope ids are all-zero; the image token stream is
 [target ++ reference] packed latents; in the joint attention the text
 tokens come first.
+
+Every linear layer takes a plain or a quantized kernel (`utils.quantize`).
+With W8A8 kernels the block prologues `modulate(layer_norm(x))` go through
+`ln_modulate_quant` (K2, per `cfg.fuse_mod_quant`) and hand int8 rows
+straight to the consuming products; `cfg.attention_impl = "pallas_qk8"`
+sends the attention to K3 (int8 q k^T).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from gpt_image_edit_tpu_torch.models.common import (
     linear_gelu,
     linear_init,
     linear_multi,
+    ln_modulate_quant,
     rms_weight_init,
 )
 from gpt_image_edit_tpu_torch.models.flux.config import FluxConfig
@@ -139,7 +146,8 @@ def _joint_attention(p, img, txt, cos, sin, cfg: FluxConfig, pad_mask):
     k = torch.cat([_qk_norm_heads(heads(lk_t), p["norm_added_k"]),
                    _qk_norm_heads(heads(lk_i), p["norm_k"])], dim=1)
     v = torch.cat([heads(lv_t), heads(lv_i)], dim=1)
-    out = dot_product_attention(_rope(q, cos, sin), _rope(k, cos, sin), v, pad_mask=pad_mask)
+    out = dot_product_attention(_rope(q, cos, sin), _rope(k, cos, sin), v, pad_mask=pad_mask,
+                                impl=cfg.attention_impl)
     out = out.reshape(b, s_txt + s_img, d)
     txt_out, img_out = out[:, :s_txt], out[:, s_txt:]
     return linear(p["to_out"], img_out), linear(p["to_add_out"], txt_out)
@@ -149,16 +157,19 @@ def _dual_block(p, mod, mod_ctx, img, txt, cos, sin, cfg: FluxConfig, pad_mask):
     sh_msa, sc_msa, g_msa, sh_mlp, sc_mlp, g_mlp = mod
     c_sh_msa, c_sc_msa, c_g_msa, c_sh_mlp, c_sc_mlp, c_g_mlp = mod_ctx
 
-    img_mod = modulate(layer_norm(img, eps=1e-6), sh_msa, sc_msa)
-    txt_mod = modulate(layer_norm(txt, eps=1e-6), c_sh_msa, c_sc_msa)
+    fuse = cfg.fuse_mod_quant
+    # W8A8: int8 rows from K2 (QuantRows), dispatched on the consuming
+    # kernel's format; otherwise the modulated tensor
+    img_mod = ln_modulate_quant(img, sh_msa, sc_msa, p["attn"]["to_q"], mode=fuse)
+    txt_mod = ln_modulate_quant(txt, c_sh_msa, c_sc_msa, p["attn"]["add_q_proj"], mode=fuse)
     attn_img, attn_txt = _joint_attention(p["attn"], img_mod, txt_mod, cos, sin, cfg, pad_mask)
 
     img = img + g_msa[:, None, :] * attn_img
-    img_mlp = modulate(layer_norm(img, eps=1e-6), sh_mlp, sc_mlp)
+    img_mlp = ln_modulate_quant(img, sh_mlp, sc_mlp, p["ff"]["in"], mode=fuse)
     img = img + g_mlp[:, None, :] * linear_gelu(p["ff"]["out"], linear(p["ff"]["in"], img_mlp))
 
     txt = txt + c_g_msa[:, None, :] * attn_txt
-    txt_mlp = modulate(layer_norm(txt, eps=1e-6), c_sh_mlp, c_sc_mlp)
+    txt_mlp = ln_modulate_quant(txt, c_sh_mlp, c_sc_mlp, p["ff_context"]["in"], mode=fuse)
     txt = txt + c_g_mlp[:, None, :] * linear_gelu(
         p["ff_context"]["out"], linear(p["ff_context"]["in"], txt_mlp))
     return img, txt
@@ -168,7 +179,7 @@ def _single_block(p, mod, x, cos, sin, cfg: FluxConfig, pad_mask):
     b, s, d = x.shape
     h, hd = cfg.num_attention_heads, cfg.attention_head_dim
     shift, scale, gate = mod
-    x_mod = modulate(layer_norm(x, eps=1e-6), shift, scale)
+    x_mod = ln_modulate_quant(x, shift, scale, p["attn"]["to_q"], mode=cfg.fuse_mod_quant)
     lq, lk, lv, mlp_h = linear_multi(
         [p["attn"]["to_q"], p["attn"]["to_k"], p["attn"]["to_v"], p["proj_mlp"]], x_mod)
 
@@ -177,7 +188,8 @@ def _single_block(p, mod, x, cos, sin, cfg: FluxConfig, pad_mask):
 
     q = _rope(_qk_norm_heads(heads(lq), p["attn"]["norm_q"]), cos, sin)
     k = _rope(_qk_norm_heads(heads(lk), p["attn"]["norm_k"]), cos, sin)
-    attn = dot_product_attention(q, k, heads(lv), pad_mask=pad_mask).reshape(b, s, d)
+    attn = dot_product_attention(q, k, heads(lv), pad_mask=pad_mask,
+                                 impl=cfg.attention_impl).reshape(b, s, d)
     out = linear_concat(p["proj_out"], [attn, ("gelu", mlp_h)])
     return x + gate[:, None, :] * out
 
@@ -197,8 +209,12 @@ def apply(
     rope: Optional[tuple] = None,         # precomputed (cos, sin)
 ) -> torch.Tensor:
     """Velocity prediction, (B, S_img, out_channels)."""
-    if cfg.attention_impl != "auto":
-        raise NotImplementedError(f"attention_impl={cfg.attention_impl!r} is not ported; use 'auto'")
+    if cfg.attention_impl == "pallas_int8":
+        raise NotImplementedError("attention_impl='pallas_int8' (w8a8-attn) is K4, the next slice "
+                                  "of the port; use 'auto' or 'pallas_qk8'")
+    if cfg.attention_impl not in ("auto", "pallas_qk8"):
+        raise NotImplementedError(f"attention_impl={cfg.attention_impl!r} is not ported; "
+                                  "use 'auto' or 'pallas_qk8'")
     if cfg.remat:
         raise NotImplementedError("remat (training) is not ported")
     s_txt = encoder_hidden_states.shape[1]

@@ -9,8 +9,9 @@ answers that.
 `flash_attention` is the wrapper. A CPU tensor goes to the plain version,
 `flash_attention_reference`, below. A CUDA tensor goes to the kernel: the
 wrapper builds it on first use with `nvcc` from the package sources into
-`build/kernels/` at the repo root, launches it on the current stream and
-raises if the build, the checks or the launch fail. There is no fallback.
+`build/kernels/` at the repo root (`ops.kernels.build`), launches it on the
+current stream and raises if the build, the checks or the launch fail.
+There is no fallback.
 
 Masking contract (the Pallas kernel's, with the GPU masking its own ragged
 edge instead of padding to a block multiple):
@@ -29,62 +30,17 @@ keys are all padding (this port gives 0, as its segment path does).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "flash_attention_fwd.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+from gpt_image_edit_tpu_torch.ops.kernels.build import kernel_function
+
 _HEAD_DIMS = (64, 80, 128)  # CLIP/T5, the Qwen2.5-VL ViT, FLUX and the Qwen LM
 _HEAD_CHUNK = 4  # heads per step of the plain version: (4, 8704, 8704) fp32 scores = 1.2 GB
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
-_LIB = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the attention kernel")
-    return path
-
-
-def build() -> Path:
-    """Compile the kernel into build/kernels (keyed by the source's hash) and
-    return the shared library's path; reuses an existing build."""
-    src = _SOURCE.read_bytes()
-    out = _BUILD_DIR / f"libgie_flash_attention_fwd_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(_SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    (_BUILD_DIR / (out.stem + ".ptxas.txt")).write_text(res.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return out
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.gie_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 8
+             + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _check_masks(q, k, q_segment_ids, kv_segment_ids, pad_mask, bias):
@@ -190,7 +146,8 @@ def _flash_attention_cuda(q, k, v, *, causal, q_segment_ids, kv_segment_ids, pad
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _library().gie_flash_attention_fwd(
+        launch = kernel_function("flash_attention_fwd", "gie_flash_attention_fwd", _ARGTYPES)
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ptr(q_seg), ptr(kv_seg), ptr(keep), ptr(bias_t), *strides,
             b, sq, skv, hq, hkv, d, _DTYPES[q.dtype], int(causal), float(scale), stream)

@@ -5,6 +5,10 @@ numpy arrays, or of arrays numpy can read) and returns the same tree of
 torch tensors, for FLUX and for the VAE. Linear kernels stay (in, out) and
 stacked block weights keep their leading layer axis; 4-D convolution
 kernels turn from JAX's HWIO into the OIHW that PyTorch's convolution takes.
+A quantized kernel (`utils.quantize`: a dict of int8/uint8 codes and fp32
+scales under "kernel") crosses as it is: its leaves keep their dtypes,
+shapes and values, whatever `dtype` asks for the rest of the tree (W8A8
+codes are stored in `utils.quantize.w8a8_layout`).
 The same converter serves the parity tests and, later, checkpoint loading.
 """
 
@@ -14,6 +18,10 @@ import numpy as np
 import torch
 
 from gpt_image_edit_tpu_torch.utils.platform import resolve_device
+from gpt_image_edit_tpu_torch.utils.quantize import w8a8_layout
+
+
+_QUANTIZED_KEYS = ("q", "q_w8a8", "q4")
 
 
 def _leaf(name, x, device, dtype) -> torch.Tensor:
@@ -36,6 +44,11 @@ def from_jax(tree, device="cuda", dtype=None):
 
     def walk(node, name=None):
         if isinstance(node, dict):
+            if any(k in node for k in _QUANTIZED_KEYS):  # codes + scales, unchanged
+                out = {k: _leaf(k, v, device, None) for k, v in node.items()}
+                if "q_w8a8" in out:
+                    out["q_w8a8"] = w8a8_layout(out["q_w8a8"])
+                return out
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v, name) for v in node]

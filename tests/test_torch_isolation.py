@@ -16,6 +16,8 @@ import torch
 
 import gpt_image_edit_tpu_torch
 from gpt_image_edit_tpu_torch.ops.kernels import flash_attention as fa_mod
+from gpt_image_edit_tpu_torch.ops.kernels import flash_attention_qk8 as qk8_mod
+from gpt_image_edit_tpu_torch.ops.kernels import fused_quant as fq_mod
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "gpt_image_edit_tpu_torch"
@@ -40,7 +42,7 @@ def test_import_pulls_in_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    assert int(res.stdout.strip()) >= 19
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
@@ -110,3 +112,28 @@ def test_kernel_wrapper_rejects_non_cuda_tensors():
     q = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa_mod.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("cuda_path, plain", [
+    (fq_mod._ln_modulate_quant_rows_cuda, "ln_modulate_quant_rows_reference"),
+    (qk8_mod._flash_attention_qk8_cuda, "flash_attention_qk8_reference"),
+], ids=["K2_fused_quant", "K3_flash_attention_qk8"])
+def test_new_kernel_paths_have_no_fallback(cuda_path, plain):
+    """K2's and K3's CUDA paths neither call their plain versions nor catch errors."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(cuda_path)))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    called = {n.func.id for n in ast.walk(tree)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    assert plain not in called
+
+
+def test_every_kernel_source_has_a_wrapper_that_builds_it():
+    """Each csrc/*.cu has a wrapper that loads it through ops.kernels.build."""
+    from gpt_image_edit_tpu_torch.ops.kernels import build
+
+    sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    assert sources == ["flash_attention_fwd", "flash_attention_qk8", "fused_quant"]
+    wrappers = "".join(p.read_text() for p in (PKG / "ops" / "kernels").glob("*.py"))
+    for name in sources:
+        assert f'kernel_function("{name}"' in wrappers, name
+        assert build.library_path(name).parent == ROOT / "build" / "kernels"

@@ -208,9 +208,16 @@ class TestCommon:
         assert out["a"][1].dtype == torch.int32
 
     def test_quantized_kernel_raises(self):
-        p = {"kernel": {"q_w8a8": torch.zeros(4, 4, dtype=torch.int8), "scale": torch.ones(1, 4)}}
-        with pytest.raises(NotImplementedError):
-            tcommon.linear(p, torch.zeros(2, 4))
+        """Quantized kernels are ported (tests/test_torch_quant.py holds them
+        to JAX); what raises is a mismatch: int8 rows into a plain kernel, or
+        an activation wider than the int8 codes."""
+        p = {"kernel": {"q_w8a8": torch.ones(8, 8, dtype=torch.int8), "scale": torch.ones(1, 8)}}
+        assert tcommon.linear(p, torch.ones(2, 8)).shape == (2, 8)
+        with pytest.raises(RuntimeError):
+            tcommon.linear(p, torch.zeros(2, 16))
+        rows = tcommon.QuantRows(*tcommon.quantize_rows(torch.ones(2, 8)), torch.float32)
+        with pytest.raises(TypeError):
+            tcommon.linear({"kernel": torch.zeros(8, 8)}, rows)
 
     def test_conv2d_matches_jax(self):
         from gpt_image_edit_tpu.models import common as jcommon

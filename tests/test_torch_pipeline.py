@@ -119,3 +119,70 @@ def test_schedule_and_buckets_match_jax():
         np.testing.assert_array_equal(flow_sigmas(n, s), jflow_sigmas(n, s))
     for w, h in [(1024, 1024), (1248, 832), (640, 1600), (3000, 400)]:
         assert pick_kontext_resolution(w, h) == jpick(w, h)
+
+
+def test_multi_reference_edit_matches_jax(pipes):
+    """Two conditioning images through encode_references: each packed after
+    the target tokens with rope modality ids 1 and 2."""
+    jpipe, tpipe = pipes
+    req = _request(False)
+    second = np.random.default_rng(6).uniform(-1, 1, (1, H, W, 3)).astype(np.float32)
+    common = dict(height=H, width=W, num_inference_steps=3, output_type="latent")
+    jreq = {k: jnp.asarray(v) for k, v in req.items()}
+    treq = {k: torch.from_numpy(v) for k, v in req.items()}
+    jreq["image"] = [jreq["image"], jnp.asarray(second)]
+    treq["image"] = [treq["image"], torch.from_numpy(second)]
+    _, j_ids = jpipe.encode_references(jreq["image"])
+    _, t_ids = tpipe.encode_references(treq["image"])
+    np.testing.assert_array_equal(t_ids.numpy(), np.asarray(j_ids))
+    assert set(np.unique(t_ids.numpy()[:, 0])) == {1.0, 2.0}
+    j_lat = np.asarray(jpipe(**jreq, **common))
+    t_lat = tpipe(**treq, **common).numpy()
+    # fp32 throughout, as test_call_matches_jax
+    assert _rel_l2(t_lat, j_lat) < 1e-4
+
+
+def test_num_images_per_prompt_matches_jax(pipes):
+    jpipe, tpipe = pipes
+    req = _request(True)
+    common = dict(height=H, width=W, num_inference_steps=2, output_type="latent",
+                  true_cfg_scale=2.0, num_images_per_prompt=2)
+    j_lat = np.asarray(jpipe(**{k: jnp.asarray(v) for k, v in req.items()}, **common))
+    t_lat = tpipe(**{k: torch.from_numpy(v) for k, v in req.items()}, **common).numpy()
+    assert t_lat.shape == j_lat.shape == (2, 16, FluxConfig.tiny().in_channels)
+    assert _rel_l2(t_lat, j_lat) < 1e-4
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas_qk8"])
+def test_w8a8_call_matches_jax(pipes, impl):
+    """The tiny pipeline with its FLUX quantized W8A8 by the port
+    (`utils.quantize`) and by the JAX package, K2 on (JAX: interpret) and
+    either attention route."""
+    import dataclasses
+
+    from gpt_image_edit_tpu.utils.quantize import quantize_params as jquantize_params
+    from gpt_image_edit_tpu_torch.utils.quantize import quantize_params
+
+    jpipe, tpipe = pipes
+    jcfg = dataclasses.replace(JFluxConfig.tiny(), attention_impl=impl, fuse_mod_quant="interpret")
+    tcfg = dataclasses.replace(FluxConfig.tiny(), attention_impl=impl, fuse_mod_quant="on")
+    jq = JKontextPipeline(jquantize_params(jpipe.flux_params, min_size=1024, mode="w8a8"), jcfg,
+                          jpipe.vae_params, JVaeConfig.tiny())
+    # a tree of its own: quantize_params works in place
+    fresh = from_jax(jax.tree_util.tree_map(np.asarray, jpipe.flux_params), device="cpu")
+    tq = KontextPipeline(quantize_params(fresh, min_size=1024, mode="w8a8"), tcfg,
+                         tpipe.vae_params, VaeConfig.tiny(), device="cpu")
+    # the tree's first leaf is an int8 dict (x_embedder, 16 x 128): the
+    # pipeline's device check reads through it
+    assert "q_w8a8" in tq.flux_params["x_embedder"]["kernel"]
+    assert "q_w8a8" in tq.flux_params["dual_blocks"]["ff"]["in"]["kernel"]
+    req = _request(False)
+    common = dict(height=H, width=W, num_inference_steps=4)
+    j_lat = np.asarray(jq(**{k: jnp.asarray(v) for k, v in req.items()}, **common,
+                          output_type="latent"))
+    t_lat = tq(**{k: torch.from_numpy(v) for k, v in req.items()}, **common,
+               output_type="latent").numpy()
+    # int8 codes on a rounding tie may move by 1 LSB between the two
+    # frameworks (last-bit differences in norms, rope and gelu); 4 steps of
+    # 5 quantized blocks carry that through: the fused-prologue bar
+    assert _rel_l2(t_lat, j_lat) < 5e-3
