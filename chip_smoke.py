@@ -22,23 +22,40 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    - K3 int8-q k^T flash attention: the FLUX shape with a text pad mask, a
      ragged length, GQA 28/4, a row with every key masked (relative L2 to
      the plain version, and K1 on the same inputs several times farther);
+   - K4 int8 q k^T + int8 p v flash attention: the FLUX shape with a text
+     pad mask, the runtime's 1024^2 joint length 8,832 (a ragged last
+     512-key group), segments, causal GQA 28/4 with a left pad, a row with
+     every key masked (relative L2 to the plain version at 512-key groups;
+     K3 and the plain version at 64-key groups several times farther);
    - the int8 products W8A8 runs on torch._int_mm, exact, beside bf16
      products of the same shapes.
 3. Small references: a two-block model through KontextPipeline on the card
    against the same weights through the plain CPU path, in bf16 and in
-   W8A8 (w8a8 and w8a8-qk8), each nearer its own mode's output than the
-   other mode's, with its mode's kernel launches.
+   W8A8 (w8a8, w8a8-qk8, w8a8-attn), each nearer its own mode's output than
+   the other mode's, with its mode's kernel launches; then one forward per
+   W8A8 mode at the card's precision: w8a8-attn nearer its own mode's CPU
+   output than w8a8's and w8a8-qk8's, and each of its attention calls
+   nearer K4's plain version than K1's and K3's on the same inputs.
 4. Edits: the full-width FLUX.1-Kontext (19 dual + 38 single blocks, 3072
    wide) and the full VAE, random weights from seed 0, answer edit requests
-   through KontextPipeline.__call__: two in bf16; then the same FLUX,
-   quantized W8A8 on the card (the VAE stays bf16), one under w8a8 and two
-   under w8a8-qk8, with the serving config (bf16 rope tables). Each kernel's
-   launch counter is set to 0 before each edit and must show the launches
-   of its path: per MMDiT forward 57 K1 (bf16, w8a8), 114 K2 (w8a8,
-   w8a8-qk8) and 57 K3 (w8a8-qk8).
+   through KontextPipeline.__call__ at the serving config (bf16 rope
+   tables): two in bf16; then the same FLUX, quantized W8A8 on the card
+   (the VAE stays bf16), one under w8a8 and two under w8a8-qk8. Each
+   kernel's launch counter is set to 0 before each edit and must show the
+   launches of its path: per MMDiT forward 57 K1 (bf16, w8a8), 114 K2
+   (w8a8, w8a8-qk8) and 57 K3 (w8a8-qk8).
 5. Profiles: one 1024^2 MMDiT forward under torch.profiler per mode,
    device time by kind (attention kernel, K2, int8 GEMMs, bf16 GEMMs, the
    rest).
+6. The runtime: with the earlier models freed,
+   UnivaRuntime(synthetic_full=True, quantize="w8a8-attn") (Qwen2.5-VL-7B,
+   T5-XXL, CLIP-L, W8A8 FLUX, the VAE; seeded random weights) answers two
+   requests through `edit`: a 1024^2 image, 28 steps, and a 1248x832 image
+   with true CFG 4.0, 6 steps (cut from 28 to keep the run short). Per
+   request: wall and stage times, peak memory, the joint length, uint8
+   output of the requested size, finite latents, and the launches: per
+   MMDiT forward 57 K4 and 114 K2, no K3, and K1 for the ViT, the LM
+   prefill, T5 and CLIP. Then a profile of one w8a8-attn forward.
 
 It prints one {"kernels": [...]} line, then, as the last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -48,6 +65,7 @@ no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -55,6 +73,7 @@ import time
 
 import numpy as np
 import torch
+from PIL import Image
 
 from gpt_image_edit_tpu_torch.models import common
 from gpt_image_edit_tpu_torch.models.common import cast_floating
@@ -62,10 +81,12 @@ from gpt_image_edit_tpu_torch.models.flux import FluxConfig, apply_flux
 from gpt_image_edit_tpu_torch.models.vae import VaeConfig
 from gpt_image_edit_tpu_torch.ops.kernels import build as kernel_build
 from gpt_image_edit_tpu_torch.ops.kernels import flash_attention as fa
+from gpt_image_edit_tpu_torch.ops.kernels import flash_attention_int8 as k4
 from gpt_image_edit_tpu_torch.ops.kernels import flash_attention_qk8 as qk8
 from gpt_image_edit_tpu_torch.ops.kernels import fused_quant as fq
 from gpt_image_edit_tpu_torch.ops.packing import latent_image_ids
 from gpt_image_edit_tpu_torch.pipeline import KontextPipeline, postprocess_to_uint8
+from gpt_image_edit_tpu_torch.serve.runtime import UnivaRuntime
 from gpt_image_edit_tpu_torch.utils.quantize import params_nbytes, quantize_params, w8a8_layout
 from gpt_image_edit_tpu_torch.utils.synthetic import synthetic_flux, synthetic_vae
 
@@ -77,14 +98,25 @@ K2_MAX_OFF_SHARE = 1e-3    # share of K2 codes 1 LSB off the plain version's
 QK8_REL_L2 = 4e-3          # K3 vs its plain version (same int8 q, k), relative L2: both
                            # round p and out to bf16 (~2.4e-3 apart); K1 is ~1e-2 away
 QK8_MIN_RATIO = 3.0        # K1 (bf16 q k^T) at least this many times farther from K3
+INT8_REL_L2 = 5e-4         # K4 vs its plain version (same int8 codes), relative L2: the
+                           # kernel's ex2.approx moves a few p8 codes by 1 (~6e-5 apart)
+INT8_MIN_RATIO = 3.0       # K3 and the plain version at 64-key groups this many times farther
+# 2^x on the special-function units: 16 results per SM per clock on sm_90
+# (CUDA C++ Programming Guide, arithmetic instruction throughput), 132 SMs,
+# 1.98 GHz boost clock
+SFU_EXP2_RATE = 132 * 16 * 1.98e9
 SMALL_OUTLIER = 32.0       # small model: input row 0 of each quantized kernel scaled up
 SMALL_REL_L2 = 5e-2        # small model: card vs its own mode's fp32 CPU path, relative L2
 SMALL_MIN_RATIO = 3.0      # ... and the other mode's CPU path this many times farther
+SMALL_ATTN_RATIO = 1.1     # w8a8-attn vs the other W8A8 modes at matched precision: measured
+                           # 1.14-1.26 over six variants of the small model (outlier 1/4/32,
+                           # 128/512 image tokens), where K4's own effect is ~1e-2 of the output
 INT8_GEMM_MARKS = ("gemm_s8", "s8s8", "imma")  # cuBLASLt's int8 tensor-core kernel names
-KERNELS = ("flash_attention_fwd", "fused_quant", "flash_attention_qk8")
+KERNELS = ("flash_attention_fwd", "fused_quant", "flash_attention_qk8", "flash_attention_int8")
 COUNTERS = {"flash_attention_fwd": fa.flash_attention,
             "fused_quant": fq.ln_modulate_quant_rows,
-            "flash_attention_qk8": qk8.flash_attention_qk8}
+            "flash_attention_qk8": qk8.flash_attention_qk8,
+            "flash_attention_int8": k4.flash_attention_int8}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -359,6 +391,97 @@ def qk8_phase():
                 bound_by=bound_by, library_ms=library_ms)
 
 
+def int8_case(name, gen, b, sq, skv, hq, hkv, d, **masks):
+    """K4 against its plain version (512-key groups): relative L2 within
+    INT8_REL_L2, and two other functions on the same inputs at least
+    INT8_MIN_RATIO times farther: the plain version at 64-key groups (a
+    kernel that requantizes p per tile) and, where it applies (a pad mask
+    only), K3 (a kernel that skips the int8 p v)."""
+    q = randn(gen, b, sq, hq, d)
+    k = randn(gen, b, skv, hkv, d)
+    v = randn(gen, b, skv, hkv, d)
+    out = k4.flash_attention_int8(q, k, v, **masks)
+    ref = k4.flash_attention_int8_reference(q, k, v, **masks)
+    others = {"plain at 64-key groups": k4.flash_attention_int8_reference(q, k, v, block_kv=64,
+                                                                          **masks)}
+    if set(masks) <= {"pad_mask"} and sq == skv:
+        others["K3"] = qk8.flash_attention_qk8(q, k, v, pad_mask=masks.get("pad_mask"))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"int8 case {name}: non-finite output")
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = rel_l2(out, ref)
+    rel_o = {n: rel_l2(out, o) for n, o in others.items()}
+    print(f"[k4] {name}: B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} d={d} rel-L2 {rel:.3e} (limit "
+          f"{INT8_REL_L2}), max_abs_err={err:.3e}; against "
+          + ", ".join(f"{n} {r:.3e} ({r / max(rel, 1e-30):.1f}x)" for n, r in rel_o.items())
+          + f" (each at least {INT8_MIN_RATIO}x)", flush=True)
+    check(rel <= INT8_REL_L2, f"int8 case {name}: rel-L2 {rel} > {INT8_REL_L2}")
+    for n, r in rel_o.items():
+        check(r >= INT8_MIN_RATIO * rel, f"int8 case {name}: K4 is as near {n} ({r}) as its plain "
+                                         f"version ({rel})")
+    return q, k, v, out, err, rel
+
+
+def int8_attention_phase():
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    # (a) the FLUX joint attention at 1024^2 with a 512-row text pad mask
+    s_txt, s = 512, 512 + 8192
+    pad = torch.ones(1, s, dtype=torch.bool, device="cuda")
+    pad[:, 384:s_txt] = False
+    q, k, v, _, err, rel = int8_case("a_flux_pad_8704", gen, 1, s, s, 24, 24, 128, pad_mask=pad)
+    kernel_ms = device_ms(lambda: k4.flash_attention_int8(q, k, v, pad_mask=pad),
+                          "flash_int8_kernel", iters=10)
+    wrapper_ms = time_ms(lambda: k4.flash_attention_int8(q, k, v, pad_mask=pad), iters=20)
+    quant_ms = time_ms(lambda: (qk8.quantize_heads(q), qk8.quantize_heads(k),
+                                k4.quantize_v_columns(v)), iters=20)
+    plain_ms = time_ms(lambda: k4.flash_attention_int8_reference(q, k, v, pad_mask=pad),
+                       iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=pad[:, None, None, :]), iters=20)
+    kept = int(pad.sum())
+    ops = 4 * 24 * s * kept * 128   # q k^T and p v, both int8
+    n_exp2 = 24 * s * kept          # one 2^x per kept score
+    # the kernel's inputs and output: int8 q, k, v and their fp32 scales, the
+    # pad row; bf16 out
+    nbytes = 3 * q.numel() + 2 * 24 * s * 4 + 24 * 128 * 4 + pad.numel() + 2 * q.numel()
+    times = {"operations": max(ops / PEAK_INT8_OPS, n_exp2 / SFU_EXP2_RATE),
+             "bytes": nbytes / PEAK_HBM_BYTES}
+    bound_by = max(times, key=times.get)
+    bound_ms = times[bound_by] * 1e3
+    print(f"[k4] a_flux_pad_8704 timing: kernel {kernel_ms:.4f} ms on the device; wrapper "
+          f"{wrapper_ms:.4f} ms with the q/k/v quantization ({quant_ms:.4f} ms alone), plain "
+          f"{plain_ms:.3f} ms, sdpa on the bf16 inputs {library_ms:.4f} ms (nearest library call; "
+          f"no PyTorch call does int8 attention), bound {bound_ms:.4f} ms ({bound_by}: int8 "
+          f"{ops / PEAK_INT8_OPS * 1e3:.4f} ms, exp2 {n_exp2 / SFU_EXP2_RATE * 1e3:.4f} ms, bytes "
+          f"{times['bytes'] * 1e3:.4f} ms)", flush=True)
+    del q, k, v, qt, kt, vt
+    # (b) the runtime's 1024^2 joint length: 384 VLM rows + 256 T5 rows +
+    # 8,192 image tokens = 8,832, a ragged last 512-key group
+    s = 640 + 8192
+    pad = torch.ones(1, s, dtype=torch.bool, device="cuda")
+    pad[:, :100] = False  # the VLM rows' left padding
+    int8_case("b_runtime_8832", gen, 1, s, s, 24, 24, 128, pad_mask=pad)
+    # (c) segments that straddle the 64- and 512-key group edges
+    seg = (torch.arange(2048, device="cuda") // 300)[None].repeat(2, 1).int()
+    int8_case("c_segments", gen, 2, 2048, 2048, 8, 8, 128, q_segment_ids=seg, kv_segment_ids=seg)
+    # (d) causal GQA 28/4 with a left pad (the LM prefill layout), Sq == Skv;
+    # the leading rows of the padded prompt see no key and must be 0
+    pad = torch.ones(2, 1024, dtype=torch.bool, device="cuda")
+    pad[1, :300] = False
+    _, _, _, out, _, _ = int8_case("d_causal_gqa_28_4_left_pad", gen, 2, 1024, 1024, 28, 4, 128,
+                                   causal=True, pad_mask=pad)
+    check(bool((out[1, :300] == 0).all()), "int8: left-padded causal rows are not 0")
+    # (e) a batch row whose keys are all masked gives 0
+    pad = torch.ones(2, 1024, dtype=torch.bool, device="cuda")
+    pad[1] = False
+    _, _, _, out, _, _ = int8_case("e_fully_masked_rows", gen, 2, 1024, 1024, 4, 4, 128,
+                                   pad_mask=pad)
+    check(bool((out[1] == 0).all()), "int8: rows with every key masked are not 0")
+    return dict(max_abs_err=err, rel_l2=rel, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 # --------------------------------------------------------------------------
 # phase 3: a small model on the card against the plain CPU path
 # --------------------------------------------------------------------------
@@ -390,17 +513,8 @@ def int8_gemm_phase():
           "padded 8-row int8 product is not exact")
 
 
-def to_card(tree):
-    """A CPU param tree on the card: quantized kernels (codes and fp32
-    scales) as they are, every other floating leaf in bf16."""
-    if isinstance(tree, dict):
-        if "q_w8a8" in tree:
-            return {k: v.cuda() for k, v in tree.items()}
-        return {k: to_card(v) for k, v in tree.items()}
-    return tree.to(device="cuda", dtype=torch.bfloat16 if tree.is_floating_point() else None)
-
-
-SMALL_MODES = ("bf16", "w8a8", "w8a8-qk8")
+SMALL_MODES = ("bf16", "w8a8", "w8a8-qk8", "w8a8-attn")
+SMALL_IMPL = {"w8a8": "auto", "w8a8-qk8": "pallas_qk8", "w8a8-attn": "pallas_int8"}
 
 
 def small_model(mode):
@@ -429,9 +543,18 @@ def small_model(mode):
     outliers(fp)
     if mode != "bf16":
         quantize_params(fp, mode="w8a8", min_size=min_size)
-        fcfg = dataclasses.replace(fcfg, fuse_mod_quant="on",
-                                   attention_impl="pallas_qk8" if mode == "w8a8-qk8" else "auto")
+        fcfg = dataclasses.replace(fcfg, fuse_mod_quant="on", attention_impl=SMALL_IMPL[mode])
     return fp, fcfg, vp, vcfg
+
+
+def to_bf16(tree, device):
+    """A CPU param tree on `device`: quantized kernels (codes and fp32
+    scales) as they are, every other floating leaf in bf16."""
+    if isinstance(tree, dict):
+        if "q_w8a8" in tree:
+            return {k: v.to(device) for k, v in tree.items()}
+        return {k: to_bf16(v, device) for k, v in tree.items()}
+    return tree.to(device=device, dtype=torch.bfloat16 if tree.is_floating_point() else None)
 
 
 def small_reference_phase():
@@ -441,7 +564,11 @@ def small_reference_phase():
     minus the initial noise). The card must lie within SMALL_REL_L2 of its
     own mode's reference and SMALL_MIN_RATIO times farther from the other
     mode's (w8a8's for bf16, bf16's for the W8A8 modes), and its launch
-    counters must show its mode's kernels."""
+    counters must show its mode's kernels.
+
+    The W8A8 modes differ from each other only in their attention, by
+    less than bf16 moves their activation codes from the fp32 path, so
+    `attention_mode_reference` tells them apart."""
     rng = np.random.default_rng(5)
     req = dict(
         prompt_embeds=torch.from_numpy(rng.standard_normal((1, 8, 64)).astype(np.float32)),
@@ -450,29 +577,33 @@ def small_reference_phase():
         latents=torch.from_numpy(rng.standard_normal((1, 64, 16)).astype(np.float32)),
         txt_pad_mask=torch.tensor([[1] * 6 + [0] * 2], dtype=torch.bool),
     )
-    req_gpu = {n: (x.to("cuda", torch.bfloat16) if x.is_floating_point() else x.cuda())
-               for n, x in req.items()}
+
+    def on(device):
+        return {n: (x.to(device, torch.bfloat16) if x.is_floating_point() else x.to(device))
+                for n, x in req.items()}
+
     kw = dict(height=64, width=64, num_inference_steps=4, output_type="latent")
     refs, models = {}, {}
     for mode in SMALL_MODES:
         models[mode] = small_model(mode)
         fp, fcfg, vp, vcfg = models[mode]
         refs[mode] = KontextPipeline(fp, fcfg, vp, vcfg, device="cpu")(**req, **kw) - req["latents"]
-    other = {"bf16": "w8a8", "w8a8": "bf16", "w8a8-qk8": "bf16"}
-    n_attn = kw["num_inference_steps"] * (2 + 2)           # K1 or K3 per step: 2 + 2 blocks
+    other = {"bf16": "w8a8", "w8a8": "bf16", "w8a8-qk8": "bf16", "w8a8-attn": "bf16"}
+    n_attn = kw["num_inference_steps"] * (2 + 2)           # attention per step: 2 + 2 blocks
     n_k2 = kw["num_inference_steps"] * (4 * 2 + 2)         # K2: 4 per dual, 1 per single
     wants = {"bf16": {"flash_attention_fwd": n_attn},
              "w8a8": {"flash_attention_fwd": n_attn, "fused_quant": n_k2},
-             "w8a8-qk8": {"fused_quant": n_k2, "flash_attention_qk8": n_attn}}
+             "w8a8-qk8": {"fused_quant": n_k2, "flash_attention_qk8": n_attn},
+             "w8a8-attn": {"fused_quant": n_k2, "flash_attention_int8": n_attn}}
     for mode in SMALL_MODES:
         fp, fcfg, vp, vcfg = models[mode]
-        pipe = KontextPipeline(to_card(fp), fcfg, cast_floating(vp, torch.bfloat16, "cuda"), vcfg,
-                               device="cuda")
+        pipe = KontextPipeline(to_bf16(fp, "cuda"), fcfg,
+                               cast_floating(vp, torch.bfloat16, "cuda"), vcfg, device="cuda")
         for fn in COUNTERS.values():
             fn.launches = 0
-        out = pipe(**req_gpu, **kw)
+        out = pipe(**on("cuda"), **kw)
         launches = {name: fn.launches for name, fn in COUNTERS.items()}
-        update = out.float().cpu() - req_gpu["latents"].float().cpu()
+        update = out.float().cpu() - on("cpu")["latents"].float()
         rel = {m: rel_l2(update, refs[m]) for m in SMALL_MODES}
         print(f"[small] {mode}: 2+2-block model, 4 steps, bf16 card vs fp32 CPU plain path (same "
               f"weights{', same int8 codes' if mode != 'bf16' else ''}): update rel-L2 "
@@ -486,6 +617,81 @@ def small_reference_phase():
         for name, n in launches.items():
             check(n == wants[mode].get(name, 0),
                   f"small reference {mode}: {name} launches {n} != {wants[mode].get(name, 0)}")
+    attention_mode_reference()
+
+
+def attention_mode_reference():
+    """w8a8-attn told apart from w8a8 and w8a8-qk8, whose models differ
+    only in their attention. One forward of the small model (512 image
+    tokens) in each W8A8 mode, on the card and through the CPU plain path
+    at the card's precision (bf16, the same weights, int8 codes and
+    inputs): the card's w8a8-attn output must lie SMALL_ATTN_RATIO times
+    nearer its own mode's CPU output than w8a8's and w8a8-qk8's (K4's own
+    effect is about the size of what bf16's last bits move through the
+    W8A8 activation codes, hence the small ratio). And each attention call
+    inside that forward, on the inputs the model gave it on the card, must
+    lie INT8_MIN_RATIO times nearer K4's plain version than K1's and K3's."""
+    from gpt_image_edit_tpu_torch.models.flux import model as flux_model
+
+    rng = np.random.default_rng(8)
+    s_img, s_txt = 512, 8
+    ids = torch.cat([latent_image_ids(16, 16, modality=0, device="cpu"),
+                     latent_image_ids(16, 16, modality=1, device="cpu")])
+    inp = dict(hidden_states=torch.from_numpy(rng.standard_normal((1, s_img, 16)).astype(np.float32)),
+               encoder_hidden_states=torch.from_numpy(
+                   rng.standard_normal((1, s_txt, 64)).astype(np.float32)),
+               pooled_projections=torch.from_numpy(rng.standard_normal((1, 32)).astype(np.float32)))
+    fixed = dict(timestep=torch.tensor([0.6]), guidance=torch.tensor([3.5]), img_ids=ids,
+                 pad_mask=torch.arange(s_txt + s_img)[None] != 6)
+
+    def on(device):
+        return {**{k: v.to(device, torch.bfloat16) for k, v in inp.items()},
+                **{k: v.to(device) for k, v in fixed.items()}}
+
+    modes = SMALL_MODES[1:]
+    calls, refs, outs = [], {}, {}
+    real = flux_model.dot_product_attention
+
+    def recording(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        calls.append((q, k, v, kw.get("pad_mask"), out))
+        return out
+
+    with torch.inference_mode():
+        for mode in modes:
+            fp, fcfg, _, _ = small_model(mode)
+            refs[mode] = apply_flux(to_bf16(fp, "cpu"), fcfg, **on("cpu")).float()
+            if mode == "w8a8-attn":
+                flux_model.dot_product_attention = recording
+            try:
+                outs[mode] = apply_flux(to_bf16(fp, "cuda"), fcfg, **on("cuda")).float().cpu()
+            finally:
+                flux_model.dot_product_attention = real
+        rel = {m: rel_l2(outs["w8a8-attn"], refs[m]) for m in modes}
+        print("[small] one forward at the card's precision (bf16 CPU plain path): w8a8-attn card "
+              "against the CPU output of " + ", ".join(f"{m} {r:.3e}" for m, r in rel.items())
+              + f" (w8a8's and w8a8-qk8's at least {SMALL_ATTN_RATIO}x its own); w8a8 card "
+              "against " + ", ".join(f"{m} {rel_l2(outs['w8a8'], refs[m]):.3e}" for m in modes),
+              flush=True)
+        for m in ("w8a8", "w8a8-qk8"):
+            check(rel[m] >= SMALL_ATTN_RATIO * rel["w8a8-attn"],
+                  f"small forward w8a8-attn: as near {m}'s CPU output ({rel[m]}) as its own "
+                  f"({rel['w8a8-attn']})")
+        worst = dict(own=0.0, ratio_k1=float("inf"), ratio_k3=float("inf"))
+        for q, k, v, pad, out in calls:
+            own = rel_l2(out, k4.flash_attention_int8_reference(q, k, v, pad_mask=pad))
+            k1 = rel_l2(out, fa.flash_attention_reference(q, k, v, pad_mask=pad))
+            k3 = rel_l2(out, qk8.flash_attention_qk8_reference(q, k, v, pad_mask=pad))
+            floor = max(own, 1e-30)
+            worst = dict(own=max(worst["own"], own), ratio_k1=min(worst["ratio_k1"], k1 / floor),
+                         ratio_k3=min(worst["ratio_k3"], k3 / floor))
+    print(f"[small] its {len(calls)} attention calls on the card, on their own inputs: rel-L2 to "
+          f"K4's plain version at most {worst['own']:.3e} (limit {INT8_REL_L2}); K1's plain "
+          f"version at least {worst['ratio_k1']:.1f}x farther, K3's {worst['ratio_k3']:.1f}x (at "
+          f"least {INT8_MIN_RATIO}x)", flush=True)
+    check(len(calls) == 4 and worst["own"] <= INT8_REL_L2, "small forward: K4 inside the model")
+    check(min(worst["ratio_k1"], worst["ratio_k3"]) >= INT8_MIN_RATIO,
+          "small forward: the model's attention is as near K1 or K3 as K4")
 
 
 # --------------------------------------------------------------------------
@@ -569,7 +775,7 @@ def profile_forward(pipe, gen, label):
             apply_flux(pipe.flux_params, fcfg, **kw)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"attention (K1/K3)": 0.0, "K2 ln_modulate_quant": 0.0, "int8 GEMM": 0.0,
+    kinds = {"attention (K1/K3/K4)": 0.0, "K2 ln_modulate_quant": 0.0, "int8 GEMM": 0.0,
              "bf16 GEMM": 0.0, "other": 0.0}
     per_kernel = []
     for e in prof.key_averages():
@@ -578,8 +784,8 @@ def profile_forward(pipe, gen, label):
             continue
         name = e.key
         per_kernel.append((us, e.count, name))
-        if "flash_fwd_kernel" in name or "flash_qk8_kernel" in name:
-            kinds["attention (K1/K3)"] += us
+        if any(t in name for t in ("flash_fwd_kernel", "flash_qk8_kernel", "flash_int8_kernel")):
+            kinds["attention (K1/K3/K4)"] += us
         elif "ln_modulate_quant_kernel" in name:
             kinds["K2 ln_modulate_quant"] += us
         elif any(t in name.lower() for t in INT8_GEMM_MARKS):
@@ -594,10 +800,109 @@ def profile_forward(pipe, gen, label):
           + "; ".join(f"{k} {v / 1e3:.2f} ms" for k, v in kinds.items()), flush=True)
     for us, n, name in sorted(per_kernel, reverse=True)[:10]:
         print(f"[profile]   {us / 1e3:9.2f} ms  x{n:<5d} {name[:110]}", flush=True)
-    check(kinds["attention (K1/K3)"] > 0, f"profile {label} shows no attention kernel time")
+    check(kinds["attention (K1/K3/K4)"] > 0, f"profile {label} shows no attention kernel time")
     if common._is_w8a8(pipe.flux_params["dual_blocks"]["ff"]["in"]["kernel"]):
         check(kinds["K2 ln_modulate_quant"] > 0 and kinds["int8 GEMM"] > 0,
               f"profile {label} shows no K2 or no int8 GEMM time")
+
+
+# --------------------------------------------------------------------------
+# phase 6: the runtime, UnivaRuntime.edit under --quantize w8a8-attn
+# --------------------------------------------------------------------------
+
+def runtime_edit(rt, label, image, prompt, *, steps, want, **kw):
+    """One request through UnivaRuntime.edit. `want` maps each kernel to its
+    launches in the whole request; every counter is set to 0 just before
+    the request and read just after. The latents the VAE decodes must be
+    finite (checked at the decoder's input)."""
+    marks, finite = [], []
+
+    def on_step(i):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    decode = rt.pipe._decode
+
+    def checked_decode(z):
+        finite.append(bool(torch.isfinite(z).all()))
+        return decode(z)
+
+    rt.pipe._decode = checked_decode
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = rt.edit(prompt, image, steps=steps, seed=11, step_callback=on_step, **kw)
+    finally:
+        rt.pipe._decode = decode
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    t = rt.last_timings
+    step_s = (marks[-1] - marks[0]) / (steps - 1)
+    encode_s = marks[0] - (t0 + t["prefill"] + t["text_encoders"])
+    decode_s = t0 + wall - marks[-1] - step_s
+    u8 = np.asarray(out)
+    want_size = (image.height, image.width) if kw.get("height") is None else (kw["height"],
+                                                                               kw["width"])
+    print(f"[runtime] {label}: {image.width}x{image.height} input, {steps} steps, "
+          f"true_cfg {kw.get('true_cfg_scale', 1.0)}: joint length S = {t['joint_length']}; wall "
+          f"{wall:.3f} s = prefill {t['prefill']:.3f} s + text encoders "
+          f"{t['text_encoders']:.3f} s + VAE encode ~{encode_s:.3f} s + loop "
+          f"{steps * step_s:.3f} s (~{step_s:.4f} s/step) + decode ~{decode_s:.3f} s; peak device "
+          f"memory {peak:.2f} GiB; output {u8.shape} {u8.dtype} min {u8.min()} max {u8.max()} "
+          f"std {u8.std():.2f}; launches {launches} (want {want})", flush=True)
+    check(finite == [True], f"runtime {label}: non-finite latents")
+    check(u8.dtype == np.uint8 and u8.shape == want_size + (3,), f"runtime {label}: bad output "
+          f"{u8.shape} {u8.dtype}, want {want_size}")
+    check(u8.std() > 0, f"runtime {label}: uint8 output is constant")
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"runtime {label}: {name} launches {n} != "
+                                      f"{want.get(name, 0)}")
+    return dict(wall_s=wall, step_s=step_s, launches=launches)
+
+
+def runtime_phase():
+    """UnivaRuntime(synthetic_full=True, quantize="w8a8-attn") answers two
+    edits: a 1024^2 image, 28 steps; a 1248x832 image with true CFG 4.0, 6
+    steps. Per MMDiT forward K4 57 and K2 114 launches, K3 none; K1 runs the
+    ViT (once per image), the LM prefill, T5 and CLIP (each once per
+    prompt)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = UnivaRuntime(synthetic_full=True, quantize="w8a8-attn")
+    _ = rt.text_encoders.t5, rt.text_encoders.clip  # built now, not inside the first edit
+    torch.cuda.synchronize()
+    print(f"[runtime] UnivaRuntime(synthetic_full=True, quantize='w8a8-attn') built in "
+          f"{time.perf_counter() - t0:.1f} s: FLUX W8A8 {params_nbytes(rt.pipe.flux_params) / 2**30:.2f}"
+          f" GiB, VLM (weight-only int8) {params_nbytes(rt.qwen_params) / 2**30:.2f} GiB, T5 "
+          f"{params_nbytes(rt.text_encoders.t5[1]) / 2**30:.2f} GiB, CLIP "
+          f"{params_nbytes(rt.text_encoders.clip[1]) / 2**30:.2f} GiB, VAE "
+          f"{params_nbytes(rt.pipe.vae_params) / 2**30:.2f} GiB; {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    fcfg, qcfg = rt.fcfg, rt.qcfg
+    t5cfg, clipcfg = rt.text_encoders.t5_cfg, rt.text_encoders.clip_cfg
+    per_fwd_k4 = fcfg.num_layers + fcfg.num_single_layers
+    per_fwd_k2 = 4 * fcfg.num_layers + fcfg.num_single_layers
+
+    def want(steps, forwards_per_step, prompts):
+        return {"flash_attention_int8": per_fwd_k4 * steps * forwards_per_step,
+                "fused_quant": per_fwd_k2 * steps * forwards_per_step,
+                "flash_attention_fwd": qcfg.vision.depth + (qcfg.text.num_layers + t5cfg.num_layers
+                                                           + clipcfg.num_layers) * prompts}
+
+    rng = np.random.default_rng(7)
+    square = Image.fromarray(rng.integers(0, 256, (1024, 1024, 3), dtype=np.uint8))
+    wide = Image.fromarray(rng.integers(0, 256, (832, 1248, 3), dtype=np.uint8))
+    edits = [runtime_edit(rt, "w8a8-attn 1024^2", square, "make the sky dramatic and dark",
+                          steps=28, want=want(28, 1, 1)),
+             runtime_edit(rt, "w8a8-attn 1248x832 true-CFG", wide,
+                          "replace the red car with a blue bicycle", steps=6, want=want(6, 2, 2),
+                          true_cfg_scale=4.0)]
+    profile_forward(rt.pipe, torch.Generator(device="cuda").manual_seed(12), "w8a8-attn")
+    return edits
 
 
 def build_kernels():
@@ -626,12 +931,12 @@ def main() -> int:
     build_kernels()
 
     measured = {"flash_attention_fwd": attention_phase(), "fused_quant": fused_quant_phase(),
-                "flash_attention_qk8": qk8_phase()}
+                "flash_attention_qk8": qk8_phase(), "flash_attention_int8": int8_attention_phase()}
     int8_gemm_phase()
     small_reference_phase()
 
-    # bf16: the slice-1 path
-    fcfg, vcfg = FluxConfig(), VaeConfig()
+    # bf16: the slice-1 path, at the serving config (bf16 rope tables)
+    fcfg, vcfg = dataclasses.replace(FluxConfig(), rope_dtype="bfloat16"), VaeConfig()
     n_fwd_k1 = fcfg.num_layers + fcfg.num_single_layers           # 57 attention calls
     n_fwd_k2 = 4 * fcfg.num_layers + fcfg.num_single_layers       # 114 block prologues
     t0 = time.perf_counter()
@@ -666,7 +971,7 @@ def main() -> int:
           f"{bf16_bytes / 2**30:.2f} GiB bf16 -> {params_nbytes(flux) / 2**30:.2f} GiB; peak "
           f"{(torch.cuda.max_memory_allocated() - before) / 2**30:.2f} GiB above the bf16 model; "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after", flush=True)
-    serve = dataclasses.replace(fcfg, rope_dtype="bfloat16", fuse_mod_quant="on")
+    serve = dataclasses.replace(fcfg, fuse_mod_quant="on")
     w8a8 = KontextPipeline(flux, serve, vae, vcfg)
     w8a8_qk8 = KontextPipeline(flux, dataclasses.replace(serve, attention_impl="pallas_qk8"),
                                vae, vcfg)
@@ -683,12 +988,19 @@ def main() -> int:
           flush=True)
     profile_forward(w8a8, gen, "w8a8")
     profile_forward(w8a8_qk8, gen, "w8a8-qk8")
+    del w8a8, w8a8_qk8, flux, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    edits += runtime_phase()
 
     sources = {"flash_attention_fwd": "gpt_image_edit_tpu/ops/pallas/flash_attention.py:54",
                "fused_quant": "gpt_image_edit_tpu/ops/pallas/fused_quant.py:30",
-               "flash_attention_qk8": "gpt_image_edit_tpu/ops/pallas/flash_attention.py:383"}
+               "flash_attention_qk8": "gpt_image_edit_tpu/ops/pallas/flash_attention.py:383",
+               "flash_attention_int8": "gpt_image_edit_tpu/ops/pallas/flash_attention.py:178"}
     tolerance = {"flash_attention_fwd": ATTN_ATOL, "fused_quant": 1,
-                 "flash_attention_qk8": {"rel_l2": QK8_REL_L2, "k1_ratio": QK8_MIN_RATIO}}
+                 "flash_attention_qk8": {"rel_l2": QK8_REL_L2, "k1_ratio": QK8_MIN_RATIO},
+                 "flash_attention_int8": {"rel_l2": INT8_REL_L2,
+                                          "k3_and_64_key_groups_ratio": INT8_MIN_RATIO}}
     entries = []
     for name in KERNELS:
         launches = sum(e["launches"][name] for e in edits)

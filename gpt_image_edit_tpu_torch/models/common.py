@@ -74,6 +74,25 @@ def rms_weight_init(c: int, *, device, dtype, layers: Optional[int] = None) -> P
     return {"scale": torch.ones(lead + (c,), device=device, dtype=dtype)}
 
 
+def layer_norm_init(c: int, *, device, dtype, layers: Optional[int] = None) -> Params:
+    lead = () if layers is None else (layers,)
+    return {"scale": torch.ones(lead + (c,), device=device, dtype=dtype),
+            "bias": torch.zeros(lead + (c,), device=device, dtype=dtype)}
+
+
+def normal_init(generator, shape, std: float, *, device, dtype) -> torch.Tensor:
+    """N(0, std^2) leaves (embedding tables), as the JAX inits draw them."""
+    t = torch.empty(shape, device=device, dtype=dtype)
+    return t.normal_(0.0, std, generator=generator)
+
+
+def layer_slice(tree, i: int):
+    """Layer i of a tree whose leaves are stacked on a leading layer axis."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 # --------------------------------------------------------------------------
 # forward: linear layers over plain, weight-only (int8 / int4) and W8A8 kernels
 # --------------------------------------------------------------------------

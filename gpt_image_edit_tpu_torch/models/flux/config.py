@@ -9,7 +9,7 @@ The port reads the model widths, `rope_dtype`, `attention_impl` and
 `scan_unroll`) have no meaning under eager PyTorch: the port runs the blocks
 as a Python loop either way, which computes the same thing. `remat`
 (training) belongs to a path the port does not have yet, and so do the
-attention routes other than "auto" and "pallas_qk8";
+attention routes other than "auto", "pallas_qk8" and "pallas_int8";
 `models.flux.model.apply` refuses a config that asks for them.
 """
 
@@ -39,9 +39,9 @@ class FluxConfig:
     remat_policy: str = "nothing"
     # attention dispatch: "auto" = K1, the bf16 flash kernel;
     # "pallas_qk8" = K3, int8 q k^T + bf16 p v (W8A8 serving, the JAX
-    # runtime's --quantize w8a8-qk8). Each launches its CUDA kernel on a
-    # CUDA tensor and runs its plain version on a CPU tensor. "pallas_int8"
-    # (K4) is not ported yet.
+    # runtime's --quantize w8a8-qk8); "pallas_int8" = K4, int8 q k^T and
+    # int8 p v (--quantize w8a8-attn). Each launches its CUDA kernel on a
+    # CUDA tensor and runs its plain version on a CPU tensor.
     attention_impl: str = "auto"
     # rope rotation dtype: "float32" = reference-faithful (diffusers
     # apply_rotary_emb upcasts); "bfloat16" keeps the rotation + tables in bf16

@@ -12,7 +12,8 @@ Every linear layer takes a plain or a quantized kernel (`utils.quantize`).
 With W8A8 kernels the block prologues `modulate(layer_norm(x))` go through
 `ln_modulate_quant` (K2, per `cfg.fuse_mod_quant`) and hand int8 rows
 straight to the consuming products; `cfg.attention_impl = "pallas_qk8"`
-sends the attention to K3 (int8 q k^T).
+sends the attention to K3 (int8 q k^T) and "pallas_int8" to K4 (int8 q k^T
+and int8 p v).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 from gpt_image_edit_tpu_torch.models.common import (
     Params,
     adaln_stacked,
+    layer_slice,
     linear,
     linear_concat,
     linear_gelu,
@@ -112,13 +114,6 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -
 
 def _mlp_embed(p: Params, x: torch.Tensor) -> torch.Tensor:
     return linear(p["out"], F.silu(linear(p["in"], x)))
-
-
-def _layer(tree, i: int):
-    """Layer i of a stacked param subtree."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def _qk_norm_heads(x: torch.Tensor, scale: Params) -> torch.Tensor:
@@ -209,12 +204,9 @@ def apply(
     rope: Optional[tuple] = None,         # precomputed (cos, sin)
 ) -> torch.Tensor:
     """Velocity prediction, (B, S_img, out_channels)."""
-    if cfg.attention_impl == "pallas_int8":
-        raise NotImplementedError("attention_impl='pallas_int8' (w8a8-attn) is K4, the next slice "
-                                  "of the port; use 'auto' or 'pallas_qk8'")
-    if cfg.attention_impl not in ("auto", "pallas_qk8"):
+    if cfg.attention_impl not in ("auto", "pallas_qk8", "pallas_int8"):
         raise NotImplementedError(f"attention_impl={cfg.attention_impl!r} is not ported; "
-                                  "use 'auto' or 'pallas_qk8'")
+                                  "use 'auto', 'pallas_qk8' or 'pallas_int8'")
     if cfg.remat:
         raise NotImplementedError("remat (training) is not ported")
     s_txt = encoder_hidden_states.shape[1]
@@ -252,11 +244,11 @@ def apply(
     single_xs = {k: v for k, v in single_p.items() if k != "norm"}
 
     for i in range(cfg.num_layers):
-        img, txt = _dual_block(_layer(dual_xs, i), dual_mod[i], dual_mod_ctx[i],
+        img, txt = _dual_block(layer_slice(dual_xs, i), dual_mod[i], dual_mod_ctx[i],
                                img, txt, cos, sin, cfg, pad_mask)
     x = torch.cat([txt, img], dim=1)
     for i in range(cfg.num_single_layers):
-        x = _single_block(_layer(single_xs, i), single_mod[i], x, cos, sin, cfg, pad_mask)
+        x = _single_block(layer_slice(single_xs, i), single_mod[i], x, cos, sin, cfg, pad_mask)
     x = x[:, s_txt:]
 
     scale, shift = torch.chunk(linear(params["norm_out"]["linear"], F.silu(temb)), 2, dim=-1)

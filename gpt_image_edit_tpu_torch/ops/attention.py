@@ -2,15 +2,19 @@
 
 Counterpart of `gpt_image_edit_tpu.ops.attention`: one entry point,
 `dot_product_attention`, in BSHD layout with GQA, causal/segment/padding
-masking, an additive bias and an fp32 softmax. Two routes, each a kernel
-wrapper that launches its CUDA kernel on a CUDA tensor and runs the
+masking, an additive bias and an fp32 softmax. Three kernel routes, each a
+kernel wrapper that launches its CUDA kernel on a CUDA tensor and runs the
 kernel's plain version on a CPU tensor:
   - impl="auto": K1 (`ops.kernels.flash_attention`), every mask;
   - impl="pallas_qk8": K3 (`ops.kernels.flash_attention_qk8`), int8 q k^T
-    for W8A8 serving, a kv pad mask only (no causal, segments or bias).
-The mask semantics are `_build_mask`'s in the JAX package. The JAX
-package's other routes ("xla", "pallas", "ring", "pallas_int8") are not
-ported; "pallas_int8" is K4, the next slice.
+    for W8A8 serving, a kv pad mask only (no causal, segments or bias);
+  - impl="pallas_int8": K4 (`ops.kernels.flash_attention_int8`), int8 q k^T
+    and int8 p v for `--quantize w8a8-attn`; causal, segments and a pad
+    mask, no bias (the JAX front end drops a bias here; this one raises).
+A row whose keys are all masked gives 0 on every route. The mask semantics
+are `_build_mask`'s in the JAX package. The JAX package's "xla" route is
+plain XLA, no TPU kernel: the models that ask for it (T5, CLIP) run on K1
+here. Its "pallas" and "ring" routes are not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Optional
 import torch
 
 from gpt_image_edit_tpu_torch.ops.kernels.flash_attention import flash_attention
+from gpt_image_edit_tpu_torch.ops.kernels.flash_attention_int8 import flash_attention_int8
 from gpt_image_edit_tpu_torch.ops.kernels.flash_attention_qk8 import flash_attention_qk8
 
 
@@ -46,18 +51,20 @@ def dot_product_attention(
       pad_mask: (B, Skv) bool/int — 1 = attend, 0 = masked key.
       bias: optional additive (B or 1, H or 1, Sq, Skv) fp32 bias.
       scale: defaults to D ** -0.5.
-      impl: "auto" (K1) or "pallas_qk8" (K3: pad_mask only).
+      impl: "auto" (K1), "pallas_qk8" (K3: pad_mask only) or "pallas_int8"
+        (K4: no bias).
     Returns: (B, Sq, Hq, D) in q.dtype; a row that sees no key is 0.
     """
     if impl == "pallas_qk8":
         if causal or q_segment_ids is not None or kv_segment_ids is not None or bias is not None:
             raise ValueError("pallas_qk8 supports pad_mask only (no causal/segments/bias)")
         return flash_attention_qk8(q, k, v, pad_mask=pad_mask, scale=scale)
+    masks = dict(causal=causal, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                 pad_mask=pad_mask, scale=scale)
     if impl == "pallas_int8":
-        raise NotImplementedError("impl='pallas_int8' is K4 (w8a8-attn), the next slice of the port")
+        if bias is not None:
+            raise ValueError("pallas_int8 takes no bias")
+        return flash_attention_int8(q, k, v, **masks)
     if impl != "auto":
-        raise ValueError(f"impl={impl!r}; the port has 'auto' and 'pallas_qk8'")
-    return flash_attention(
-        q, k, v, causal=causal, q_segment_ids=q_segment_ids,
-        kv_segment_ids=kv_segment_ids, pad_mask=pad_mask, bias=bias, scale=scale,
-    )
+        raise ValueError(f"impl={impl!r}; the port has 'auto', 'pallas_qk8' and 'pallas_int8'")
+    return flash_attention(q, k, v, bias=bias, **masks)

@@ -63,6 +63,25 @@ def _check_masks(q, k, q_segment_ids, kv_segment_ids, pad_mask, bias):
             raise ValueError("bias must be 4-D, broadcastable to (B, Hq, Sq, Skv)")
 
 
+def keep_mask(sq: int, skv: int, *, causal=False, q_segment_ids=None, kv_segment_ids=None,
+              pad_mask=None, device=None) -> Optional[torch.Tensor]:
+    """The masks as one (B or 1, 1, Sq, Skv) bool keep-mask, or None (the
+    JAX package's `_build_mask`): causal end-aligned, equal segment ids,
+    kept keys."""
+    keep = None
+    if causal:
+        rows = torch.arange(sq, device=device)[:, None]
+        cols = torch.arange(skv, device=device)[None, :]
+        keep = (cols <= rows + (skv - sq))[None, None]
+    if q_segment_ids is not None:
+        seg = q_segment_ids[:, None, :, None] == kv_segment_ids[:, None, None, :]
+        keep = seg if keep is None else keep & seg
+    if pad_mask is not None:
+        pm = pad_mask.bool()[:, None, None, :]
+        keep = pm if keep is None else keep & pm
+    return keep
+
+
 def flash_attention_reference(q, k, v, *, causal=False, q_segment_ids=None, kv_segment_ids=None,
                               pad_mask=None, bias=None, scale=None):
     """Plain PyTorch version of the kernel: masked fp32 softmax attention,
@@ -74,15 +93,8 @@ def flash_attention_reference(q, k, v, *, causal=False, q_segment_ids=None, kv_s
     if scale is None:
         scale = d ** -0.5
     dev = q.device
-    keep = torch.ones(b, 1, sq, skv, dtype=torch.bool, device=dev)
-    if causal:
-        rows = torch.arange(sq, device=dev)[:, None]
-        cols = torch.arange(skv, device=dev)[None, :]
-        keep = keep & (cols <= rows + (skv - sq))
-    if q_segment_ids is not None:
-        keep = keep & (q_segment_ids[:, None, :, None] == kv_segment_ids[:, None, None, :])
-    if pad_mask is not None:
-        keep = keep & pad_mask.bool()[:, None, None, :]
+    keep = keep_mask(sq, skv, causal=causal, q_segment_ids=q_segment_ids,
+                     kv_segment_ids=kv_segment_ids, pad_mask=pad_mask, device=dev)
     out = torch.empty(b, sq, hq, d, dtype=q.dtype, device=dev)
     for h0 in range(0, hq, _HEAD_CHUNK):
         h1 = min(h0 + _HEAD_CHUNK, hq)
@@ -94,7 +106,8 @@ def flash_attention_reference(q, k, v, *, causal=False, q_segment_ids=None, kv_s
         if bias is not None:
             bh = bias if bias.shape[1] == 1 else bias[:, h0:h1]
             s = s + bh.float()
-        s = s.masked_fill(~keep, float("-inf"))
+        if keep is not None:
+            s = s.masked_fill(~keep, float("-inf"))
         m = s.amax(dim=-1, keepdim=True)
         m = torch.where(torch.isinf(m), torch.zeros_like(m), m)   # rows with no key
         p = torch.exp(s - m)

@@ -1,8 +1,11 @@
-"""FLUX 3-axis rotary position embedding (paired convention).
+"""Rotary position embeddings, the counterpart of `gpt_image_edit_tpu.ops.rope`.
 
-Counterpart of the FLUX half of `gpt_image_edit_tpu.ops.rope`: features are
-rotated in adjacent pairs (0,1), (2,3), ...; cos/sin are interleaved
-[c0,c0,c1,c1,...] per axis (diffusers FluxPosEmbed, repeat_interleave_real).
+Two conventions that must not be mixed:
+- paired (FLUX): features are rotated in adjacent pairs (0,1), (2,3), ...;
+  cos/sin are interleaved [c0,c0,c1,c1,...] per axis (diffusers
+  FluxPosEmbed, repeat_interleave_real);
+- halves (the Qwen2.5-VL LM and ViT): rotate_half splits the head dim in
+  two; cos/sin are [c0..c{d/2-1}, c0..c{d/2-1}].
 """
 
 from __future__ import annotations
@@ -51,3 +54,42 @@ def apply_rope_paired(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> 
     rotated = torch.stack([-x_odd, x_even], dim=-1).reshape(xf.shape)
     out = xf * cos + rotated * sin
     return out.to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Qwen M-RoPE (halves convention: rotate_half splits the head dim in two)
+# --------------------------------------------------------------------------
+
+def mrope_freqs(position_ids: torch.Tensor, head_dim: int,
+                mrope_section: Sequence[int] = (16, 24, 24),
+                theta: float = 1000000.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin for Qwen2.5-VL multimodal rope.
+
+    position_ids: (3, B, S) int, the (t, h, w) position per token. Returns
+    (cos, sin), each (B, S, head_dim) float32, halves layout: the half head
+    dim is [sec0 from t, sec1 from h, sec2 from w], repeated twice."""
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=position_ids.device) * 2.0 / head_dim
+    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=position_ids.device),
+                               exponent)
+    angles = position_ids.float()[..., None] * inv_freq  # (3, B, S, half)
+
+    def mix(tab):
+        parts, start = [], 0
+        for i, sec in enumerate(mrope_section):
+            parts.append(tab[i, ..., start:start + sec])
+            start += sec
+        mixed = torch.cat(parts, dim=-1)
+        return torch.cat([mixed, mixed], dim=-1)
+
+    return mix(torch.cos(angles)), mix(torch.sin(angles))
+
+
+def apply_rope_halves(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """HF-convention rotation, in the table dtype. cos/sin broadcast against
+    x: (S, D) tables rotate (B, H, S, D), (B, S, 1, D) tables rotate BSHD."""
+    dtype = x.dtype
+    xf = x.to(cos.dtype)
+    half = xf.shape[-1] // 2
+    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos + rotated * sin).to(dtype)

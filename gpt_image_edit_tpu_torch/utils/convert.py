@@ -2,7 +2,8 @@
 
 `from_jax` takes the JAX package's parameter tree (nested dicts and lists of
 numpy arrays, or of arrays numpy can read) and returns the same tree of
-torch tensors, for FLUX and for the VAE. Linear kernels stay (in, out) and
+torch tensors, for every model the port has (FLUX, the VAE, Qwen2.5-VL,
+T5 and CLIP). Linear kernels stay (in, out) and
 stacked block weights keep their leading layer axis; 4-D convolution
 kernels turn from JAX's HWIO into the OIHW that PyTorch's convolution takes.
 A quantized kernel (`utils.quantize`: a dict of int8/uint8 codes and fp32
@@ -44,7 +45,9 @@ def from_jax(tree, device="cuda", dtype=None):
 
     def walk(node, name=None):
         if isinstance(node, dict):
-            if any(k in node for k in _QUANTIZED_KEYS):  # codes + scales, unchanged
+            if (any(k in node for k in _QUANTIZED_KEYS)
+                    and not any(isinstance(v, dict) for v in node.values())):
+                # codes + scales, unchanged (an attention dict also has a "q")
                 out = {k: _leaf(k, v, device, None) for k, v in node.items()}
                 if "q_w8a8" in out:
                     out["q_w8a8"] = w8a8_layout(out["q_w8a8"])

@@ -150,7 +150,7 @@ def w8a8_flux():
 
 
 @pytest.mark.parametrize("epilogue", ["bf16", "f32"])
-@pytest.mark.parametrize("impl", ["auto", "pallas_qk8"])
+@pytest.mark.parametrize("impl", ["auto", "pallas_qk8", "pallas_int8"])
 def test_w8a8_flux_forward_matches_jax(monkeypatch, w8a8_flux, impl, epilogue):
     monkeypatch.setenv("GIE_W8A8_EPILOGUE", epilogue)
     cfg, params, inputs, pad = w8a8_flux
@@ -197,8 +197,6 @@ def test_flux_config_values_checked(w8a8_flux):
     _, params, inputs, _ = w8a8_flux
     tp = from_jax(params, device="cpu")
     tin = {k: torch.from_numpy(v) for k, v in inputs.items()}
-    with pytest.raises(NotImplementedError, match="K4"):
-        apply_flux(tp, dataclasses.replace(FluxConfig.tiny(), attention_impl="pallas_int8"), **tin)
     with pytest.raises(NotImplementedError):
         apply_flux(tp, dataclasses.replace(FluxConfig.tiny(), attention_impl="ring"), **tin)
     with pytest.raises(ValueError):

@@ -16,6 +16,7 @@ import torch
 
 import gpt_image_edit_tpu_torch
 from gpt_image_edit_tpu_torch.ops.kernels import flash_attention as fa_mod
+from gpt_image_edit_tpu_torch.ops.kernels import flash_attention_int8 as k4_mod
 from gpt_image_edit_tpu_torch.ops.kernels import flash_attention_qk8 as qk8_mod
 from gpt_image_edit_tpu_torch.ops.kernels import fused_quant as fq_mod
 
@@ -117,9 +118,10 @@ def test_kernel_wrapper_rejects_non_cuda_tensors():
 @pytest.mark.parametrize("cuda_path, plain", [
     (fq_mod._ln_modulate_quant_rows_cuda, "ln_modulate_quant_rows_reference"),
     (qk8_mod._flash_attention_qk8_cuda, "flash_attention_qk8_reference"),
-], ids=["K2_fused_quant", "K3_flash_attention_qk8"])
+    (k4_mod._flash_attention_int8_cuda, "flash_attention_int8_reference"),
+], ids=["K2_fused_quant", "K3_flash_attention_qk8", "K4_flash_attention_int8"])
 def test_new_kernel_paths_have_no_fallback(cuda_path, plain):
-    """K2's and K3's CUDA paths neither call their plain versions nor catch errors."""
+    """K2's, K3's and K4's CUDA paths neither call their plain versions nor catch errors."""
     tree = ast.parse(textwrap.dedent(inspect.getsource(cuda_path)))
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
     called = {n.func.id for n in ast.walk(tree)
@@ -132,7 +134,8 @@ def test_every_kernel_source_has_a_wrapper_that_builds_it():
     from gpt_image_edit_tpu_torch.ops.kernels import build
 
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
-    assert sources == ["flash_attention_fwd", "flash_attention_qk8", "fused_quant"]
+    assert sources == ["flash_attention_fwd", "flash_attention_int8", "flash_attention_qk8",
+                       "fused_quant"]
     wrappers = "".join(p.read_text() for p in (PKG / "ops" / "kernels").glob("*.py"))
     for name in sources:
         assert f'kernel_function("{name}"' in wrappers, name

@@ -116,8 +116,6 @@ def test_front_end_routes():
                 dict(q_segment_ids=pm.int(), kv_segment_ids=pm.int())):
         with pytest.raises(ValueError, match="pad_mask only"):
             tattn.dot_product_attention(q, k, v, impl="pallas_qk8", **bad)
-    with pytest.raises(NotImplementedError, match="K4"):
-        tattn.dot_product_attention(q, k, v, impl="pallas_int8")
     with pytest.raises(ValueError):
         tattn.dot_product_attention(q, k, v, impl="xla")
 
